@@ -29,16 +29,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bidirectional_pathtracing_tpu.config import RenderConfig
-from bidirectional_pathtracing_tpu.models import bdpt
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.config import RenderConfig
+from bidirectional_pathtracing.models import bdpt
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
 
 
 def _env_image():
     """ennis.exr when real, else a synthetic HDR sky (sun blob + gradient)."""
     path = "/root/reference/exr/ennis.exr"
     try:
-        from bidirectional_pathtracing_tpu.utils.exr import read_exr
+        from bidirectional_pathtracing.utils.exr import read_exr
         img = read_exr(path)
         if img.shape[0] >= 8:
             print(f"using {path}")
@@ -60,8 +60,8 @@ def _env_image():
 
 def _open_scene():
     """Ground quad + two diffuse spheres, no analytic lights."""
-    from bidirectional_pathtracing_tpu.scene.procedural import _quad
-    from bidirectional_pathtracing_tpu.scene.types import (
+    from bidirectional_pathtracing.scene.procedural import _quad
+    from bidirectional_pathtracing.scene.types import (
         Camera, MAT_DIFFUSE, Scene, make_geometry, make_lights,
         make_materials)
     s = 4.0
@@ -96,9 +96,9 @@ def _open_scene():
 
 
 def run_envlight(args):
-    from bidirectional_pathtracing_tpu.core import rng
-    from bidirectional_pathtracing_tpu.models import pathtracer as pt
-    from bidirectional_pathtracing_tpu.ops import envlight as envops
+    from bidirectional_pathtracing.core import rng
+    from bidirectional_pathtracing.models import pathtracer as pt
+    from bidirectional_pathtracing.ops import envlight as envops
 
     w, h = args.size
     cfg = RenderConfig(spp=1, max_ray_depth=3, width=w, height=h,

@@ -23,8 +23,8 @@ def _block_err(ref, mine, floor=0.05):
 
 
 def _render(scene, spp):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=spp, max_ray_depth=5, width=120, height=90,
                        integrator="bdpt")
     return render(scene, cfg)

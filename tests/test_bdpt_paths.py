@@ -64,7 +64,7 @@ def _parse_dump(path):
 
 
 def _build_subpath(verts, nv, dump_mat_to_mine):
-    from bidirectional_pathtracing_tpu.models.bdpt import Subpath
+    from bidirectional_pathtracing.models.bdpt import Subpath
     pos = np.zeros((1, nv + 2, 3), np.float32)
     n = np.zeros((1, nv + 2, 3), np.float32)
     alpha = np.zeros((1, nv + 2, 3), np.float32)
@@ -90,8 +90,8 @@ def _build_subpath(verts, nv, dump_mat_to_mine):
 def _dump_material_map(scene_dae, aux):
     """Map harness material indices (scene-dump order, no dedup) to our
     deduped material-table ids by re-running the dump-order walk."""
-    from bidirectional_pathtracing_tpu.scene import collada as C
-    from bidirectional_pathtracing_tpu.scene.build import _material_record
+    from bidirectional_pathtracing.scene import collada as C
+    from bidirectional_pathtracing.scene.build import _material_record
     info = C.load_dae(scene_dae)
     records = aux["material_records"]
 
@@ -115,9 +115,9 @@ def _dump_material_map(scene_dae, aux):
 @pytest.mark.parametrize("dump_path", sorted(
     glob.glob(os.path.join(os.path.dirname(__file__), "golden", "pd_*.txt"))))
 def test_replay_reference_paths(dump_path):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.models import bdpt
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.models import bdpt
+    from bidirectional_pathtracing.scene.build import load_scene
 
     prefix = os.path.basename(dump_path).rsplit("_", 1)[0]
     scene_dae = SCENE_FOR_PREFIX[prefix]

@@ -18,15 +18,15 @@ def _blocks(img, nb=6):
 
 @pytest.fixture(scope="module")
 def bunny():
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
+    from bidirectional_pathtracing.scene.build import load_scene
     scene, aux = load_scene(f"{REFERENCE}/dae/sky/CBbunny.dae", 120, 90)
     assert scene.bvh is not None, "BVH should auto-attach for 28k tris"
     return scene
 
 
 def test_bunny_pt_golden(bunny):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=8, max_ray_depth=5, width=120, height=90,
                        integrator="pt", light_samples=4)
     res = render(bunny, cfg)

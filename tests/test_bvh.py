@@ -7,10 +7,10 @@ import pytest
 
 from tests.conftest import REFERENCE, reference_available
 
-from bidirectional_pathtracing_tpu.ops.intersect import (
+from bidirectional_pathtracing.ops.intersect import (
     intersect, intersect_bvh)
-from bidirectional_pathtracing_tpu.scene.bvh import build_bvh
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.scene.bvh import build_bvh
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
 
 
 def _random_rays(n, seed, lo=-1.5, hi=2.0):
@@ -50,7 +50,7 @@ def test_bvh_cornell_box():
 @pytest.mark.skipif(not reference_available(), reason="no reference scenes")
 @pytest.mark.slow
 def test_bvh_cbbunny_large_mesh():
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
+    from bidirectional_pathtracing.scene.build import load_scene
     scene, aux = load_scene(f"{REFERENCE}/dae/sky/CBbunny.dae", 120, 90)
     assert aux["num_tris"] > 20000
     bvh = build_bvh(scene.geometry)
@@ -59,10 +59,10 @@ def test_bvh_cbbunny_large_mesh():
 
 def test_native_builder_matches_numpy():
     scene = make_cornell_box()
-    from bidirectional_pathtracing_tpu.scene import bvh as bvh_mod
+    from bidirectional_pathtracing.scene import bvh as bvh_mod
     lo, hi, ids = bvh_mod._primitive_bounds(scene.geometry)
     try:
-        from bidirectional_pathtracing_tpu.ops.native import bvh_build_native
+        from bidirectional_pathtracing.ops.native import bvh_build_native
         native = bvh_build_native(lo, hi, 4)
     except Exception as e:  # pragma: no cover
         pytest.skip(f"native toolchain unavailable: {e}")

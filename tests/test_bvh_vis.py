@@ -5,9 +5,9 @@ raytraced_renderer.cpp:376-467)."""
 import numpy as np
 import pytest
 
-from bidirectional_pathtracing_tpu.scene.bvh import build_bvh
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
-from bidirectional_pathtracing_tpu.utils.bvh_vis import (
+from bidirectional_pathtracing.scene.bvh import build_bvh
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.utils.bvh_vis import (
     BVHVisualizer, collect_ray_log, save_visualization)
 
 
@@ -68,7 +68,7 @@ def test_render_image_and_rays(vis, tmp_path):
 
     path = str(tmp_path / "vis_bvh.png")
     save_visualization(path, img2)
-    from bidirectional_pathtracing_tpu.utils.png import read_png
+    from bidirectional_pathtracing.utils.png import read_png
     out = read_png(path)
     assert out.shape[:2] == (h, w)
 

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from bidirectional_pathtracing_tpu.scene.camera_file import (
+from bidirectional_pathtracing.scene.camera_file import (
     dump_camera_settings, load_camera_settings)
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
 
 
 def test_round_trip(tmp_path):

@@ -4,9 +4,9 @@ same buffers as an uninterrupted one (counter-based sample stream)."""
 
 import numpy as np
 
-from bidirectional_pathtracing_tpu.config import RenderConfig
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
-from bidirectional_pathtracing_tpu.utils.render import render
+from bidirectional_pathtracing.config import RenderConfig
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.utils.render import render
 
 pytestmark = pytest.mark.slow
 
@@ -21,7 +21,7 @@ def test_resume_matches_uninterrupted(tmp_path):
     # run with per-pass checkpointing, then simulate a crash after pass 2 by
     # re-rendering from the saved state
     render(scene, cfg, checkpoint_path=path, checkpoint_every=1)
-    from bidirectional_pathtracing_tpu.utils import checkpoint as ckpt
+    from bidirectional_pathtracing.utils import checkpoint as ckpt
     fp = ckpt.config_fingerprint(cfg, cfg.width, cfg.height)
     st = ckpt.load_checkpoint(path, fp)
     assert st is not None and st["next_pass"] == cfg.spp - 1
@@ -37,7 +37,7 @@ def test_checkpoint_rejects_config_change(tmp_path):
                        integrator="bdpt")
     path = str(tmp_path / "state.npz")
     render(scene, cfg, checkpoint_path=path, checkpoint_every=1)
-    from bidirectional_pathtracing_tpu.utils import checkpoint as ckpt
+    from bidirectional_pathtracing.utils import checkpoint as ckpt
     other = RenderConfig(spp=3, max_ray_depth=3, width=24, height=16,
                          integrator="bdpt")
     fp = ckpt.config_fingerprint(other, 24, 16)

@@ -68,7 +68,7 @@ def test_vertex_normals_point_inward(cbspheres_lambertian):
 
 
 def test_cbgems_malformed_matrix_loads():
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
+    from bidirectional_pathtracing.scene.build import load_scene
     scene, aux = load_scene(f"{REFERENCE}/dae/sky/CBgems.dae", 120, 90)
     assert aux["num_tris"] > 100
 

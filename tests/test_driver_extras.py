@@ -6,11 +6,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from bidirectional_pathtracing_tpu.config import RenderConfig
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
-from bidirectional_pathtracing_tpu.scene.types import (
+from bidirectional_pathtracing.config import RenderConfig
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.scene.types import (
     LIGHT_SPOT, Lights, make_lights)
-from bidirectional_pathtracing_tpu.utils.render import autofocus, render
+from bidirectional_pathtracing.utils.render import autofocus, render
 import pytest
 
 
@@ -56,8 +56,8 @@ def test_spot_light_bdpt_finite_and_unbiased_direction():
 def test_spot_light_scene_builds():
     """_build_light converts a COLLADA spot LightInfo (gl_scene/spot_light.h
     transform semantics) instead of raising."""
-    from bidirectional_pathtracing_tpu.scene import collada as C
-    from bidirectional_pathtracing_tpu.scene.build import _build_light
+    from bidirectional_pathtracing.scene import collada as C
+    from bidirectional_pathtracing.scene.build import _build_light
 
     info = C.LightInfo()
     info.light_type = C.LIGHT_SPOT
@@ -80,8 +80,8 @@ def test_autofocus_returns_hit_distance():
     # a few box diagonals
     assert 0.1 < fd < 100.0
     # a ray through the same pixel must hit at exactly that t
-    from bidirectional_pathtracing_tpu.ops import camera_ops
-    from bidirectional_pathtracing_tpu.ops.intersect import scene_intersect
+    from bidirectional_pathtracing.ops import camera_ops
+    from bidirectional_pathtracing.ops.intersect import scene_intersect
     o, d = camera_ops.generate_ray(box.camera, jnp.asarray([0.5]),
                                    jnp.asarray([0.5]))
     hit = scene_intersect(box, o, d, jnp.asarray([0.0]),
@@ -91,8 +91,8 @@ def test_autofocus_returns_hit_distance():
 
 
 def test_probability_debug_image(tmp_path):
-    from bidirectional_pathtracing_tpu.ops import envlight
-    from bidirectional_pathtracing_tpu.utils.png import read_png
+    from bidirectional_pathtracing.ops import envlight
+    from bidirectional_pathtracing.utils.png import read_png
 
     rng = np.random.default_rng(0)
     data = rng.uniform(0.1, 2.0, size=(8, 16, 3))

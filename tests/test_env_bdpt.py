@@ -28,8 +28,8 @@ def test_bdpt_env_smoke_fast():
 def test_bdpt_env_subpath_splats_fast():
     """Env light subpaths produce finite, nonnegative light-image splats
     on a pure-env scene (the (c) strategy family)."""
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     scene = _scene_with_env()
     res = render(scene, RenderConfig(spp=8, max_ray_depth=4, width=40,
                                      height=30, integrator="bdpt"))
@@ -44,9 +44,9 @@ def test_bdpt_env_mixed_smoke_fast():
     alongside the area-light (s,t) families — finite output, env splats
     land in the light image."""
     import numpy as np
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
-    scene = _mixed_scene(w=40, h=30)
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
+    scene = _mixed_scene()
     res = render(scene, RenderConfig(spp=4, max_ray_depth=4, width=40,
                                      height=30, integrator="bdpt"))
     assert np.isfinite(res.combined).all()
@@ -56,26 +56,26 @@ def test_bdpt_env_mixed_smoke_fast():
 
 def _scene_with_env():
     from examples.inverse_rendering import _env_image, _open_scene
-    from bidirectional_pathtracing_tpu.ops import envlight
+    from bidirectional_pathtracing.ops import envlight
     scene = _open_scene()
     return scene._replace(envmap=envlight.build_envmap(_env_image()))
 
 
-def _mixed_scene(w=60, h=45):
-    """CBspheres_lambertian (area light + diffuse spheres) with an envmap
-    attached — the reference's normal `-e` path appends the env light to
-    scene->lights (raytraced_renderer.cpp:117-119)."""
+def _mixed_scene():
+    """The procedural Cornell box (area light + diffuse spheres, the
+    CBspheres_lambertian layout) with an envmap attached — the reference's
+    normal `-e` path appends the env light to scene->lights
+    (raytraced_renderer.cpp:117-119)."""
     from examples.inverse_rendering import _env_image
-    from bidirectional_pathtracing_tpu.ops import envlight
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    scene, _ = load_scene(
-        f"{REFERENCE}/dae/sky/CBspheres_lambertian.dae", w, h)
+    from bidirectional_pathtracing.ops import envlight
+    from bidirectional_pathtracing.scene.procedural import make_cornell_box
+    scene = make_cornell_box(sphere_materials=("diffuse", "diffuse"))
     return scene._replace(envmap=envlight.build_envmap(_env_image()))
 
 
 def _render(scene, integrator, spp, w=60, h=45):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=spp, max_ray_depth=4, width=w, height=h,
                        integrator=integrator, light_samples=1)
     return render(scene, cfg).combined
@@ -100,17 +100,16 @@ def test_bdpt_env_matches_pt():
 
 
 @pytest.mark.slow
-@pytest.mark.skipif(not reference_available(), reason="no reference")
 def test_bdpt_env_mixed_matches_pt():
     """Partition check on a MIXED env+area scene: env-emission paths and
     area-light paths are disjoint path-space supports, each with its own
     complete MIS partition ((b)/(c) for env classes, the (s,t) families
     for area classes), so converged BDPT must equal converged PT.
     pt_reference_nee=False: the reference PT's 1/d^3 NEE quirk is ~20%
-    dark on Cornell scenes (BENCH_NOTES r04) and would fail any
-    cross-integrator comparison."""
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    dark on Cornell scenes (README, known reference quirks) and would fail
+    any cross-integrator comparison."""
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     scene = _mixed_scene()
     imgs = {}
     for integ in ("bdpt", "pt"):
@@ -136,10 +135,10 @@ def test_bdpt_env_mixed_specular_matches_pt():
     the pt_mis PT: the reference-parity PT terminates secondary misses
     black and cannot see env through speculars (BENCH_NOTES r05)."""
     from examples.inverse_rendering import _env_image
-    from bidirectional_pathtracing_tpu.ops import envlight
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.ops import envlight
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     scene, _ = load_scene(f"{REFERENCE}/dae/sky/CBspheres.dae", 60, 45)
     scene = scene._replace(envmap=envlight.build_envmap(_env_image()))
     imgs = {}
@@ -162,12 +161,12 @@ def test_bdpt_env_specular_chains_match_mis_pt():
     measured an 8.8% systematic gap — BENCH_NOTES r05.)"""
     import jax.numpy as jnp
     from examples.inverse_rendering import _env_image
-    from bidirectional_pathtracing_tpu.ops import envlight
-    from bidirectional_pathtracing_tpu.scene.procedural import (
+    from bidirectional_pathtracing.ops import envlight
+    from bidirectional_pathtracing.scene.procedural import (
         make_cornell_box)
-    from bidirectional_pathtracing_tpu.scene.types import make_lights
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.scene.types import make_lights
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     scene = make_cornell_box(sphere_materials=("mirror", "glass"))
     mats = scene.materials._replace(
         emission=jnp.zeros_like(scene.materials.emission))
@@ -195,15 +194,15 @@ def test_bdpt_env_with_area_light_still_matches_golden():
     """An env-free scene with the BDPT env code path compiled in must be
     untouched (regression: bunny_unlit golden is PT-only; here we check
     CBspheres_lambertian BDPT against its golden with envmap=None)."""
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
+    from bidirectional_pathtracing.scene.build import load_scene
     scene, _ = load_scene(
         f"{REFERENCE}/dae/sky/CBspheres_lambertian.dae", 120, 90)
     img = _render(scene, "bdpt", 16, w=120, h=90)
     ref = np.load(
         "tests/golden/cbspheres_lambertian_bdpt_120x90_64spp_d5.npz")
     # combined comparison at matching depth (golden is d5; use d5 here)
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=16, max_ray_depth=5, width=120, height=90,
                        integrator="bdpt")
     img = render(scene, cfg).combined

@@ -25,7 +25,7 @@ def _synthetic_env():
 
 
 def test_env_pdf_normalised():
-    from bidirectional_pathtracing_tpu.ops import envlight
+    from bidirectional_pathtracing.ops import envlight
     env = envlight.build_envmap(_synthetic_env())
     assert abs(float(env.pdf.sum()) - 1.0) < 1e-4
     assert abs(float(env.marginal_cdf[-1]) - 1.0) < 1e-4
@@ -35,7 +35,7 @@ def test_env_sample_L_is_unbiased_estimator():
     """E[L/pdf] over env samples equals the cosine-free env integral."""
     import jax
     import jax.numpy as jnp
-    from bidirectional_pathtracing_tpu.ops import envlight
+    from bidirectional_pathtracing.ops import envlight
     img = _synthetic_env()
     env = envlight.build_envmap(img)
     n = 100_000
@@ -58,7 +58,7 @@ def test_env_sample_Le_geometry_and_pdf():
     direction stream is the same CDF sampler as sample_L)."""
     import jax
     import jax.numpy as jnp
-    from bidirectional_pathtracing_tpu.ops import envlight
+    from bidirectional_pathtracing.ops import envlight
     img = _synthetic_env()
     env = envlight.build_envmap(img)
     n = 50_000
@@ -94,10 +94,10 @@ def test_env_sample_Le_geometry_and_pdf():
 
 @pytest.mark.slow
 def test_env_render_matches_oracle():
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.ops import envlight
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.ops import envlight
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.utils.render import render
     scene, _ = load_scene(f"{REFERENCE}/dae/sky/bunny_unlit.dae", 120, 90)
     scene = scene._replace(envmap=envlight.build_envmap(_synthetic_env()))
     cfg = RenderConfig(spp=8, max_ray_depth=5, width=120, height=90,

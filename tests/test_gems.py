@@ -17,9 +17,9 @@ def _blocks(img, nb=6):
 
 
 def test_gems_bdpt_golden():
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.utils.render import render
     scene, aux = load_scene(f"{REFERENCE}/dae/sky/CBgems.dae", 120, 90)
     assert aux["num_tris"] > 100
     cfg = RenderConfig(spp=16, max_ray_depth=8, width=120, height=90,

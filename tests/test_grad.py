@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bidirectional_pathtracing_tpu.config import RenderConfig
-from bidirectional_pathtracing_tpu.models import bdpt, pathtracer as pt
-from bidirectional_pathtracing_tpu.core import rng
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.config import RenderConfig
+from bidirectional_pathtracing.models import bdpt, pathtracer as pt
+from bidirectional_pathtracing.core import rng
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
 
 pytestmark = pytest.mark.slow
 

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from bidirectional_pathtracing_tpu.ops.intersect import intersect, occluded
-from bidirectional_pathtracing_tpu.scene.types import make_geometry
+from bidirectional_pathtracing.ops.intersect import intersect, occluded
+from bidirectional_pathtracing.scene.types import make_geometry
 
 
 def _simple_geom():

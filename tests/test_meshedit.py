@@ -4,7 +4,7 @@ which it leaves as TODO stubs — ours are implemented and invariant-checked).""
 import numpy as np
 import pytest
 
-from bidirectional_pathtracing_tpu.scene.meshedit import HalfedgeMesh
+from bidirectional_pathtracing.scene.meshedit import HalfedgeMesh
 
 
 def icosahedron():
@@ -212,9 +212,9 @@ def test_scene_build_with_mesh_ops():
     import os
     if not os.path.isdir("/root/reference"):
         pytest.skip("reference scenes not mounted")
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.utils.render import render
 
     path = "/root/reference/dae/sky/CBspheres_lambertian.dae"
     base, aux0 = load_scene(path, 32, 24)

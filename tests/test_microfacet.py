@@ -16,7 +16,7 @@ pytestmark = [pytest.mark.slow, pytest.mark.skipif(not reference_available(),
 
 @pytest.fixture(scope="module")
 def mf_scene():
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
+    from bidirectional_pathtracing.scene.build import load_scene
     scene, aux = load_scene(
         f"{REFERENCE}/dae/sky/CBspheres_microfacet_al_ag.dae", 120, 90)
     kinds = [r["kind"] for r in aux["material_records"]]
@@ -31,8 +31,8 @@ def _blocks(img, nb=6):
 
 
 def test_microfacet_pt_golden(mf_scene):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=16, max_ray_depth=5, width=120, height=90,
                        integrator="pt", light_samples=4)
     res = render(mf_scene, cfg)
@@ -49,8 +49,8 @@ def test_microfacet_pt_golden(mf_scene):
 def test_microfacet_bdpt_runs(mf_scene):
     """BDPT with microfacet: finite output, nonzero image (the reference
     cannot do this at all)."""
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=2, max_ray_depth=4, width=60, height=45,
                        integrator="bdpt")
     res = render(mf_scene, cfg)
@@ -88,8 +88,8 @@ def test_microfacet_bdpt_matches_pt(mf_scene):
     docstring): with the reference's defective pricing, lobe-aligned
     fresh light samples escape MIS damping (w~0.96 where ~5e-4 is
     correct) and the limb blocks read ~2x bright with 500x fireflies."""
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     w, h, depth = 96, 72, 5
     b = render(mf_scene, RenderConfig(
         spp=48, max_ray_depth=depth, width=w, height=h,
@@ -110,9 +110,9 @@ def test_bdpt_matches_correct_pt_lambertian():
     Isolates the reference NEE quirk from any microfacet question — if
     this fails the same way the microfacet comparison fails, the cause is
     integrator-level, not the BSDF."""
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.utils.render import render
     scene, _ = load_scene(
         f"{REFERENCE}/dae/sky/CBspheres_lambertian.dae", 96, 72)
     b = render(scene, RenderConfig(

@@ -8,10 +8,10 @@ import jax
 import numpy as np
 import pytest
 
-from bidirectional_pathtracing_tpu.config import RenderConfig
-from bidirectional_pathtracing_tpu.parallel.render import (
+from bidirectional_pathtracing.config import RenderConfig
+from bidirectional_pathtracing.parallel.render import (
     make_render_mesh, render_frame_sharded)
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
 
 pytestmark = pytest.mark.slow
 

@@ -27,8 +27,8 @@ def _block_err(a, b, nb=8, floor=0.05):
 
 
 def test_pt_matches_reference_cbspheres_lambertian(cbspheres_lambertian):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     scene, _ = cbspheres_lambertian
     cfg = RenderConfig(spp=32, max_ray_depth=5, width=120, height=90,
                        integrator="pt", light_samples=4)
@@ -40,8 +40,8 @@ def test_pt_matches_reference_cbspheres_lambertian(cbspheres_lambertian):
 
 
 def test_pt_deterministic(cbspheres_lambertian):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     scene, _ = cbspheres_lambertian
     cfg = RenderConfig(spp=2, max_ray_depth=3, width=40, height=30,
                        integrator="pt", light_samples=1)

@@ -20,8 +20,8 @@ GOLDEN = "tests/golden"
 
 @pytest.fixture(scope="module")
 def refract_scene():
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.scene.types import MAT_REFRACTION
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.scene.types import MAT_REFRACTION
     scene, aux = load_scene(
         f"{REFERENCE}/dae/sky/CBspheres_refract.dae", 120, 90)
     kinds = np.asarray(scene.materials.kind)
@@ -41,8 +41,8 @@ def _block_err(ref, mine, floor=0.05):
 
 
 def test_refract_pt_golden(refract_scene):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=16, max_ray_depth=5, width=120, height=90,
                        integrator="pt", light_samples=4)
     res = render(refract_scene, cfg)
@@ -53,8 +53,8 @@ def test_refract_pt_golden(refract_scene):
 
 
 def test_refract_bdpt_golden(refract_scene):
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.utils.render import render
     cfg = RenderConfig(spp=16, max_ray_depth=5, width=120, height=90,
                        integrator="bdpt")
     res = render(refract_scene, cfg)

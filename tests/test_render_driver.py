@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from bidirectional_pathtracing_tpu.config import RenderConfig
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
-from bidirectional_pathtracing_tpu.utils.render import render
+from bidirectional_pathtracing.config import RenderConfig
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.utils.render import render
 import pytest
 
 
@@ -64,10 +64,10 @@ def test_cooperative_cancel_keeps_partial_accumulation():
     raytraced_renderer.cpp:226,611)."""
     import jax
     import numpy as np
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.scene.procedural import (
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.scene.procedural import (
         make_cornell_box)
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.utils.render import render
 
     class CancelAfter:
         def __init__(self, n):

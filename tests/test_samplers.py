@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bidirectional_pathtracing_tpu.core import rng, samplers
+from bidirectional_pathtracing.core import rng, samplers
 
 
 def _u(n, seed=0, dims=2):

@@ -40,10 +40,10 @@ def _params(paths):
 @pytest.mark.parametrize("dae", _params(ALL_DAE))
 def test_scene_parses_and_renders(dae):
     name = os.path.splitext(os.path.basename(dae))[0]
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.scene.types import MAT_EMISSION
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.scene.types import MAT_EMISSION
+    from bidirectional_pathtracing.utils.render import render
 
     scene, aux = load_scene(dae, 32, 24)
     cfg = RenderConfig(spp=1, max_ray_depth=3, width=32, height=24,

@@ -8,9 +8,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from bidirectional_pathtracing_tpu.config import RenderConfig
-from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
-from bidirectional_pathtracing_tpu.viewer import (
+from bidirectional_pathtracing.config import RenderConfig
+from bidirectional_pathtracing.scene.procedural import make_cornell_box
+from bidirectional_pathtracing.viewer import (
     RENDER_MODE, VISUALIZE_MODE, Viewer, _make_server)
 
 
@@ -76,7 +76,7 @@ def test_mode_switch_and_quit():
 
 @pytest.mark.slow
 def test_progressive_mean_matches_batch_render():
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.utils.render import render
     v = make_viewer()
     for _ in range(4):
         assert v.tick()
@@ -119,7 +119,7 @@ def test_http_endpoints():
                 return r.status, r.read()
 
         st, body = get("/")
-        assert st == 200 and b"bdpt-tpu viewer" in body
+        assert st == 200 and b"bdpt viewer" in body
         st, body = get("/frame.png")
         assert st == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
         st, body = get("/status")
@@ -136,7 +136,7 @@ def test_http_endpoints():
 
 
 def test_edit_mode_applies_mesh_ops_and_dump_key():
-    from bidirectional_pathtracing_tpu.viewer import EDIT_MODE
+    from bidirectional_pathtracing.viewer import EDIT_MODE
     calls = []
 
     def reload_fn(ops):
@@ -159,7 +159,7 @@ def test_edit_mode_applies_mesh_ops_and_dump_key():
     # 'd' camera dump writes the real reference format (regression: the
     # viewer once called dump_camera_settings with the wrong arity)
     v.key_press("d")
-    from bidirectional_pathtracing_tpu.scene.camera_file import (
+    from bidirectional_pathtracing.scene.camera_file import (
         load_camera_settings)
     cam = load_camera_settings("/tmp/viewer_edit_test_cam_settings.txt")
     np.testing.assert_allclose(np.asarray(cam.pos),

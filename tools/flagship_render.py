@@ -6,11 +6,11 @@ block-by-block against the reference's committed goldens
     # default: spheres gems bunny lucy; "lucy" renders the 457k-tri
     # Loop-subdivided bunny (the CBlucy stand-in: CBlucy.dae is a missing
     # blob per /root/reference/.MISSING_LARGE_BLOBS) — the end-to-end
-    # large-scene convergence demonstration (VERDICT r04 #2).
+    # large-scene convergence demonstration.
 
 Writes artifacts/CB<scene>_bdpt_128.png (+ _eye/_light) and
-artifacts/FLAGSHIP.json with a UNIFORM schema per row: 128 spp, compile_s
-+ aot_warm (post-AOT steady state), wall time, measured Mrays/s, and 8x8
+artifacts/FLAGSHIP.json with a UNIFORM schema per row: 128 spp, compile_s,
+wall time, measured Mrays/s, and 8x8
 block error in tonemapped sRGB space against a parity referee — the
 reference's committed golden PNG when one exists (spheres, gems), else a
 converged same-spp MIS-PT render (pt_mis + pt_reference_nee=False, the
@@ -40,7 +40,7 @@ def _load_lucy_standin(width, height):
     (28.5k -> ~457k tris).  Only meshes >=1000 tris are subdivided: the
     Cornell-box walls are open sheets whose boundaries shrink under Loop
     subdivision (they rendered as ovals in the first r03 artifact)."""
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
+    from bidirectional_pathtracing.scene.build import load_scene
     return load_scene("/root/reference/dae/sky/CBbunny.dae", width, height,
                       mesh_ops=("upsample", "upsample"),
                       mesh_ops_min_tris=1000)
@@ -62,16 +62,15 @@ def main():
 
     import jax
 
-    from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.scene.build import load_scene
-    from bidirectional_pathtracing_tpu.utils import image as img
-    from bidirectional_pathtracing_tpu.utils.png import read_png
-    from bidirectional_pathtracing_tpu.utils.render import render
+    from bidirectional_pathtracing.config import RenderConfig
+    from bidirectional_pathtracing.scene.build import load_scene
+    from bidirectional_pathtracing.utils import image as img
+    from bidirectional_pathtracing.utils.png import read_png
+    from bidirectional_pathtracing.utils.render import render
 
-    try:   # same persistent compile cache as bench.py
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-    except Exception:
-        pass
+    from bidirectional_pathtracing.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
 
     # merge into the existing artifact so single-scene reruns don't drop
     # the other scenes' rows
@@ -88,40 +87,28 @@ def main():
                 f"/root/reference/dae/sky/{scene_name}.dae", 480, 360)
         cfg = RenderConfig(spp=spp, max_ray_depth=depth, width=480,
                            height=360, integrator="bdpt")
-        # Warm the EXACT step render() dispatches (same tcfg/chunk/operand
+        # Warm the exact step render() dispatches (same tcfg/chunk/operand
         # signature) so wall_time_s below is steady-state render time, with
-        # the one-off compile reported separately.  Without this the
-        # artifact's samples/s divides by compile time and understates the
-        # rate users see on every subsequent render ~10x (the r02
-        # flagship-vs-bench discrepancy, VERDICT item 3).
+        # the one-off compile reported separately.
         import jax.numpy as jnp
-        import numpy as np
-        from bidirectional_pathtracing_tpu.utils import aot
-        from bidirectional_pathtracing_tpu.utils.render import (
+        from bidirectional_pathtracing.utils.render import (
             _auto_chunk, _bdpt_step_chunk, _trace_cfg)
         tcfg = _trace_cfg(cfg)
         chunk = _auto_chunk(cfg)
         inv = jnp.float32(1.0 / cfg.spp)
+
+        def step():
+            out = _bdpt_step_chunk(scene, jax.random.key(cfg.seed),
+                                   jnp.int32(0), tcfg, 480, 360, chunk, inv)
+            jax.block_until_ready(out)
+
         t0 = time.perf_counter()
-        # resolve through the AOT store (same key as render()): a fresh
-        # process re-rendering a known scene shape loads the persisted
-        # executable in seconds instead of compiling for minutes
-        step, aot_warm = aot.get_step(
-            _bdpt_step_chunk, "bdpt_step_chunk",
-            (scene, jax.random.key(cfg.seed), jnp.int32(0), tcfg, 480, 360,
-             chunk, inv),
-            ((0, 1, 2, 7), f"{tcfg!r}|480x360|chunk{chunk}"))
-        w_eye, _, _ = step(scene, jax.random.key(cfg.seed), jnp.int32(0),
-                           inv)
-        np.asarray(w_eye)
+        step()
         warm_s = time.perf_counter() - t0
-        # the warm-up above executed one full chunk after compile/load;
-        # time an identical dispatch and subtract so compile_s is the
-        # compile (or AOT load) alone (ADVICE r03)
+        # the warm-up above executed one full chunk after compiling; time
+        # an identical dispatch and subtract so compile_s is the compile
         t0 = time.perf_counter()
-        w_eye, _, _ = step(scene, jax.random.key(cfg.seed), jnp.int32(0),
-                           inv)
-        np.asarray(w_eye)
+        step()
         compile_s = warm_s - (time.perf_counter() - t0)
         t0 = time.perf_counter()
         res = render(scene, cfg)
@@ -133,7 +120,6 @@ def main():
         row = {
             "spp": spp,
             "compile_s": round(compile_s, 1),
-            "aot_warm": bool(aot_warm),
             "wall_time_s": round(res.stats["wall_time_s"], 1),
             "samples_per_s": round(res.stats["camera_samples_per_s"], 1),
             "mrays_per_s": round(res.stats["mrays_per_s"], 3),

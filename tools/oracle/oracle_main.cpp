@@ -6,7 +6,7 @@
  * bsdf/camera/pathtracer/bidirection — the files the reference also ships
  * prebuilt as libs/libpt31.*, CMakeLists.txt:199-218) plus pd_dump
  * instrumentation, and feeds them a scene exported by
- * bidirectional_pathtracing_tpu.scene.dump (world-space polygon soup +
+ * bidirectional_pathtracing.scene.dump (world-space polygon soup +
  * materials + lights + camera), reproducing the Application::load camera
  * placement (application.cpp:228-304).
  *

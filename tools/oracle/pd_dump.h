@@ -2,7 +2,7 @@
  * src/pathtracer/pd_dump.h (see instrument.py).  This is the repo's
  * equivalent of the reference's prebuilt pt31 oracle mechanism
  * (reference CMakeLists.txt:199-218): an instrumented build of the
- * author's own integrator whose output the TPU port is validated against.
+ * author's own integrator whose output the JAX port is validated against.
  *
  * Emits, for selected pixels of a -s 1 single-threaded render:
  *   PD EYE|LIGHT k  pos xyz  n xyz  alpha xyz  p P  dirpdf D  alb A  delta B  mat M

@@ -105,7 +105,7 @@ def main():
     work = os.path.join(args.build, "work")
     os.makedirs(work, exist_ok=True)
 
-    from bidirectional_pathtracing_tpu.scene.dump import dump_scene
+    from bidirectional_pathtracing.scene.dump import dump_scene
     scenes = {s for _, s, *_ in goldens} | {s for _, s, _ in pd_fixtures}
     for s in scenes:
         dump_scene(f"{REFERENCE}/dae/sky/{s}.dae",
